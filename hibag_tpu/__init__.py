@@ -1,40 +1,38 @@
-"""hibag_tpu — TPU-native HLA genotype imputation via attribute bagging.
+"""hibag_tpu — HLA genotype imputation via attribute bagging, in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the HIBAG
 R package (reference: zhengxwen/HIBAG): ensemble classifiers trained by
 bootstrap + greedy SNP selection + EM haplotype-frequency estimation, and
 prediction by averaged posterior probabilities over unordered HLA genotype
-pairs — reformulated as MXU matmul chains instead of SIMD popcount loops.
+pairs — reformulated as matmul chains instead of SIMD popcount loops.
 
 HIBAG-style function aliases (hlaAttrBagging → train, hlaPredict → predict,
 …) are exported for users migrating from the R package; see README.md for
 the full mapping.
 """
 
+import os
+
 __version__ = "0.1.0"
+
+
+#: the persistent compile cache's directory when JAX_COMPILATION_CACHE_DIR
+#: is not set: one fixed path at the root of the checkout (a path that
+#: moves never hits, since the path is part of the cache key)
+COMPILE_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    ".jax_cache")
 
 
 def _enable_compile_cache():
     """Persist compiled executables across processes (XLA compilation
-    cache). On remote-compile TPU setups a cold compile of the fused
-    trainer costs minutes; the serialized executable loads in seconds.
-    Opt out with HIBAG_TPU_NO_COMPILE_CACHE=1; an existing user-configured
-    cache dir is left untouched."""
-    import os
-    if os.environ.get("HIBAG_TPU_NO_COMPILE_CACHE"):
-        return
-    try:
-        import jax
-        if jax.config.jax_compilation_cache_dir:
-            return
-        path = os.environ.get(
-            "HIBAG_TPU_COMPILE_CACHE",
-            os.path.expanduser("~/.cache/hibag_tpu/xla"))
-        os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    cache): a fused trainer's cold compile costs minutes, the serialized
+    executable loads in seconds. JAX itself reads JAX_COMPILATION_CACHE_DIR
+    when that is set; otherwise the cache goes to COMPILE_CACHE_DIR."""
+    import jax
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", COMPILE_CACHE_DIR)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 
 _enable_compile_cache()
@@ -131,8 +129,8 @@ def hlaSetKernelTarget(cpu: str = "max"):
     """Compatibility shim for the reference's SIMD-target selector
     (R/HIBAG.R hlaSetKernelTarget, src/HIBAG.cpp kernel dispatch).
 
-    On TPU the compiler owns instruction selection, so there is nothing to
-    switch; returns the active JAX backend/device description the way the
+    On an accelerator the compiler owns instruction selection, so there is
+    nothing to switch; returns the active JAX backend/device description the way the
     reference returns the chosen CPU flags."""
     import jax
     dev = jax.devices()[0]

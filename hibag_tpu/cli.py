@@ -269,7 +269,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["Position", "Pos+Allele", "RefSNP+Position",
                             "RefSNP"])
     p.add_argument("--engine", default="auto",
-                   choices=["auto", "jnp", "pallas"])
+                   choices=["auto", "jnp", "triton"])
     p.add_argument("--type", default=None,
                    choices=["response+dosage", "response", "prob",
                             "response+prob"])

@@ -310,7 +310,7 @@ class PackedEnsemble:
     """Fixed-shape (padded) device layout of an ensemble.
 
     The analogue of the reference's SoA auxiliary layout ``SetHaploAux``
-    (src/LibHLA.cpp:517-560) — but laid out for MXU matmuls: haplotype bits
+    (src/LibHLA.cpp:517-560) — but laid out for matmuls: haplotype bits
     as a dense {0,1} matrix per classifier, frequencies/alleles as flat
     vectors, classifier-major so scans/shard_maps stride over axis 0.
     """

@@ -1,6 +1,6 @@
 """Attribute-bagging training: bootstrap, greedy SNP selection, EM.
 
-Host-side orchestration of the TPU kernels in em.py, replicating the
+Host-side orchestration of the device kernels in em.py, replicating the
 reference's control flow (CVariableSelection::Search, src/LibHLA.cpp:
 1981-2122; CAttrBag_Model::BuildClassifiers, src/LibHLA.cpp:2268-2305;
 hlaAttrBagging wrapper, R/HIBAG.R:48-275), with one structural change made
@@ -98,7 +98,7 @@ class TrainingContext:
         # 1.5x midpoints, >= 64): padded rows are all-missing with zero
         # bootstrap weight, so EM/eval sums are unchanged
         # (tests/test_chunked.py), and nearby cohort sizes share compiled
-        # executables — remote-compile hygiene for the fused path
+        # executables of the fused path
         self.n_samp_pad = _shape_bucket(self.n_samp)
         pad = self.n_samp_pad - self.n_samp
         # SNP axis likewise bucketed for the fused trainer's static shapes;
@@ -175,11 +175,11 @@ def grow_classifier(ctx: TrainingContext, B: np.ndarray, rng: RRng,
     reference-precision path; requires jax_enable_x64 — used to quantify
     the f32 decision deviation, see docs/DEVIATIONS.md #1).
     em_iter_seg: EM iterations per device dispatch (None = the whole EM in
-    one dispatch). Set at extreme (N, haplotype-count) scales where a
-    single EM-to-convergence execution outruns the dispatch environment —
-    results are bitwise identical either way.
+    one dispatch). Bounds the length of one device execution at extreme
+    (N, haplotype-count) scales — results are bitwise identical either
+    way.
     eval_mode: "device" (production) scores candidates with the factorized
-    TPU kernel; "ordered" (parity mode, needs the native lib) scores them
+    device kernel; "ordered" (parity mode, needs the native lib) scores them
     with the reference's EXACT serial summation order so that exact
     floating ties in the accept decision resolve identically to the
     compiled reference kernel (_BestGuess_def/_PostProb_def traversal,
@@ -365,7 +365,7 @@ def train_parallel_batch(ctx: TrainingContext, rngs: list, mtry: int,
                          verbose: bool = False) -> list:
     """Grow K classifiers in lockstep, batching device work per greedy step.
 
-    The TPU replacement for the reference's process-parallel ensemble
+    The device replacement for the reference's process-parallel ensemble
     training (hlaParallelAttrBagging, R/HIBAG.R:293-451): every greedy step
     runs `batched_grow_step` over the classifier axis — sharded across the
     mesh when one is given — while the host applies each classifier's
@@ -539,7 +539,7 @@ def train_parallel(hla_table, geno_data, n_classifiers: int = 100,
                    hcap: int = 256, max_steps: int = 256,
                    on_overflow: str = "warn", seg_steps: Optional[int] = None,
                    freeze_max_batch: Optional[int] = None,
-                   resume: bool = False, engine=None) -> AttrBagModel:
+                   resume: bool = False) -> AttrBagModel:
     """Parallel ensemble training (hlaParallelAttrBagging equivalent).
 
     Trains classifiers in device-batched groups of `batch` (default: one per
@@ -552,13 +552,8 @@ def train_parallel(hla_table, geno_data, n_classifiers: int = 100,
     writes checkpoints.
 
     seg_steps (fused mode): growth steps per device dispatch. Default
-    bounds single-dispatch wall time automatically; pass 1 at extreme
-    (N, hcap) scales where even the default segment outruns the dispatch
-    environment's limits.
-
-    engine (fused mode): step-kernel engine — None/"auto" picks the fused
-    Pallas step kernels on TPU and pure jnp elsewhere
-    (train_fused.resolve_engine).
+    bounds single-dispatch wall time automatically; a smaller value gives
+    more frequent progress reports at extreme (N, hcap) scales.
     """
     import os as _os
     import jax
@@ -605,8 +600,7 @@ def train_parallel(hla_table, geno_data, n_classifiers: int = 100,
                                     max_steps=max_steps, mesh=mesh,
                                     seg_steps=seg_steps, progress=prog,
                                     on_overflow=on_overflow,
-                                    freeze_max_batch=freeze_max_batch,
-                                    engine=engine)
+                                    freeze_max_batch=freeze_max_batch)
         else:
             rngs = [RRng((seed + 1000003 * (k0 + j)) % (2**31 - 1))
                     for j in range(kb)]

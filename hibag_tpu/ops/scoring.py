@@ -1,4 +1,4 @@
-"""TPU-native genotype–haplotype scoring as an MXU matmul chain.
+"""Genotype–haplotype scoring as a matmul chain.
 
 This replaces the reference's SIMD popcount kernels (reference
 src/LibHLA.cpp:747-819 ``hamm_d`` and the per-target files
@@ -19,7 +19,7 @@ Summing over SNPs, the full pairwise distance matrix for one sample is
 with alpha = Σ[g==1] + 2·Σ[g==2], u = [g==0] − [g==1] − [g==2], v = H u,
 m1 = [g==1], and H the {0,1} haplotype-bit matrix. The O(H²·L) popcount work
 becomes one [H,L]×[L,H] matmul per sample — exact in f32/bf16 because all
-values are small integers — and lands on the MXU instead of emulated popcounts.
+values are small integers — and runs on matrix units instead of popcounts.
 
 The per-pair likelihood weight is then ``freq_i · freq_j · MIN_RARE_FREQ**D``
 (reference ADD_FREQ_MUTANT, src/LibHLA.h:223), and the posterior over
@@ -27,7 +27,7 @@ unordered HLA-genotype pairs is the allele-grouped quadratic form
 
     S[A,B] = W[:,A]ᵀ · exp(λ·D) · W[:,B],   W[h,A] = freq_h · [allele_h == A]
 
-(two more MXU matmuls), equivalent to the reference's triangular accumulation
+(two more matmuls), equivalent to the reference's triangular accumulation
 in _PostProb2_def (src/LibHLA.cpp:1770-1830): the unordered-pair probability
 is S[A,B]+S[B,A] off-diagonal and S[A,A] on the diagonal.
 
@@ -76,6 +76,9 @@ def pair_distance(hap_bits: jax.Array, geno_codes: jax.Array,
     Returns D [N, H, H] (exact small integers, in f32).
     """
     dt = compute_dtype
+    # no precision is set on these two contractions, and none is needed:
+    # every operand is 0 or ±1 and every sum an integer of at most 2L = 256,
+    # exact in any float32 matmul mode (TF32 and bf16 inputs included)
     Hb = hap_bits.astype(dt)
     alpha, u, m1 = geno_coefficients(geno_codes, dt)
     # v[n,h] = sum_l H[h,l] * u[n,l]

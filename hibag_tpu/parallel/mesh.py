@@ -5,12 +5,12 @@ worker processes and concatenating them (hlaParallelAttrBagging +
 .DynamicClusterCall, reference R/HIBAG.R:293-451, R/DataUtilities.R:124-213),
 and by splitting samples across workers for prediction (R/HIBAG.R:764-807).
 
-TPU-native equivalent: a 1-D device mesh with axis "ens". Training shards a
+Device equivalent: a 1-D device mesh with axis "ens". Training shards a
 *batch of classifiers* (each with its own bootstrap and haplotype state)
 across devices — training data is replicated, so the greedy-step kernels run
 embarrassingly parallel and XLA inserts no cross-device traffic. Prediction
 shards classifiers and reduces the weighted ensemble posterior with a
-cross-device sum (all-reduce over ICI), replacing the reference's
+cross-device sum (an all-reduce), replacing the reference's
 master-side prob merging (HIBAG_SumList / UpdateAddProbW / NormalizeProb,
 src/HIBAG.cpp:1463-1547).
 """
@@ -18,6 +18,7 @@ src/HIBAG.cpp:1463-1547).
 from __future__ import annotations
 
 import functools
+import os
 from typing import Optional
 
 import jax
@@ -51,6 +52,20 @@ def replicate(mesh: Mesh, tree):
 # multi-host orchestration
 # ---------------------------------------------------------------------------
 
+def _local_device_ids() -> Optional[list]:
+    """The one card of this process from its launcher's ``LOCAL_RANK``
+    (its rank among the processes of its host), or None to leave the
+    choice to JAX: when the launcher already restricted the process with
+    ``CUDA_VISIBLE_DEVICES`` or ``JAX_LOCAL_DEVICE_IDS``, or gives no local
+    rank (JAX then takes a managed cluster's local rank, SLURM's or Open
+    MPI's, or else opens every card of the host)."""
+    env = os.environ
+    if ("CUDA_VISIBLE_DEVICES" in env or "JAX_LOCAL_DEVICE_IDS" in env
+            or "LOCAL_RANK" not in env):
+        return None
+    return [int(env["LOCAL_RANK"])]
+
+
 def distributed_init(coordinator: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None) -> tuple:
@@ -59,12 +74,16 @@ def distributed_init(coordinator: Optional[str] = None,
     The reference scales across machines with R PSOCK clusters and a
     hand-rolled job farm (.DynamicClusterCall, R/DataUtilities.R:124-213);
     here the JAX distributed runtime provides process identity and the
-    global device mesh. Returns (process_index, process_count).
+    global device mesh. Each process opens the cards its launcher gives it
+    (see ``_local_device_ids``), so several processes on one host each
+    open their own card instead of all opening every card. Returns
+    (process_index, process_count).
     """
     if coordinator is not None:
         jax.distributed.initialize(coordinator_address=coordinator,
                                    num_processes=num_processes,
-                                   process_id=process_id)
+                                   process_id=process_id,
+                                   local_device_ids=_local_device_ids())
     return jax.process_index(), jax.process_count()
 
 
@@ -99,7 +118,7 @@ def allgather_pickled(obj) -> list:
 
 def gather_classifiers(local_model, n_classifiers: int):
     """All-gather serialized classifiers across hosts (single-process:
-    identity) — the TPU-native replacement for the reference's master-side
+    identity) — the replacement for the reference's master-side
     combine (hlaCombineModelObj)."""
     if jax.process_count() == 1:
         return local_model
@@ -188,7 +207,7 @@ def batched_grow_step(bits, freq, allele, geno_sel, B, is_oob, g_cand, afreq,
     g_cand [K,C,N]; afreq [K,C]; new_col [K] int32; a1/a2 [N] replicated.
 
     With the K axis sharded over the mesh, XLA partitions the whole step
-    across devices with zero communication — the TPU analogue of the
+    across devices with zero communication — the analogue of the
     reference's per-process classifier training.
     """
     fn = jax.vmap(_grow_step_single,
@@ -211,7 +230,7 @@ def sharded_predict(hap_bits, hap_freq, hap_allele, snp_index, snp_weight,
     snp_index [C,L]; snp_weight [P], geno_codes [N,P] (replicated).
 
     Returns (ens [N,A,A] weight-normalized, wsum [N]) — the classifier sum
-    crosses the mesh axis, so XLA lowers it to an all-reduce over ICI.
+    crosses the mesh axis, so XLA lowers it to an all-reduce.
     """
     A = n_alleles
 

@@ -1,73 +1,33 @@
-"""Shared benchmark/profile dataset constructions.
-
-bench.py and the scripts/profile_*.py tools must time EXACTLY the same
-workloads, otherwise profile numbers silently stop mapping onto the
-recorded bench metrics — so the constructions live here, once.
-
-All builders read the data files bundled with the reference package
-(/root/reference/data) — the same inputs BASELINE.md measured the compiled
-reference kernel on.
+"""Benchmark workloads, built from the seeded panel generator
+(hibag_tpu.data.panel), so bench.py and any profiling script time exactly
+the same inputs without files from outside the repository.
 """
 
 from __future__ import annotations
 
-import numpy as np
+from ..data.panel import synthetic_locus
 
-REF_DATA = "/root/reference/data"
-
-
-def load_ceu(locus: str = "A"):
-    """(HLATypeTable, SNPGenoData) for the bundled HapMap CEU panel."""
-    import hibag_tpu
-    from hibag_tpu.data.allele import HLATypeTable
-    from hibag_tpu.io.rdata import read_rdata, r_to_py
-
-    ht = r_to_py(read_rdata(
-        f"{REF_DATA}/HLA_Type_Table.rdata")["HLA_Type_Table"])
-    geno = hibag_tpu.SNPGenoData.from_hibag_r(r_to_py(read_rdata(
-        f"{REF_DATA}/HapMap_CEU_Geno.rdata")["HapMap_CEU_Geno"]))
-    hla = HLATypeTable.from_alleles(
-        ht["sample.id"], ht[f"{locus}.1"], ht[f"{locus}.2"], locus=locus,
-        assembly="hg19")
-    return hla, geno
+#: population seed shared by every workload below
+SEED = 100
 
 
-def headline_1000snp(geno):
-    """config[0] genotypes: the ~1000 SNPs nearest the HLA-A locus."""
-    from hibag_tpu.data.allele import loci_info
-
-    _, start, end, _ = loci_info("hg19")["A"]
-    mid = (start + end) // 2
-    order = np.argsort(np.abs(geno.snp_position - mid))[:1000]
-    return geno.subset(snp_mask=np.sort(order))
+def headline(n_samples: int = 60, n_snps: int = 1000, n_alleles: int = 14):
+    """Small-panel training shape: 60 samples x 1,000 SNPs within ±500 kb
+    of HLA-A (the size of the HapMap CEU panel HIBAG ships with).
+    Returns (population, hla_table, geno_data)."""
+    pop = synthetic_locus("A", n_snps, n_alleles, seed=SEED)
+    return (pop, *pop.draw(n_samples, SEED + 1))
 
 
-def midscale_1000x266(hla=None, geno=None, n_samples: int = 1000,
-                      seed: int = 0):
-    """The matched mid-scale training shape: 1,000 CEU-resampled samples x
-    266 HLA-A-flanking SNPs (the config BASELINE.md measured the reference
-    kernel at, VPOPCNT 4 threads).  Returns (hla_table, geno_data)."""
-    import hibag_tpu
-    from hibag_tpu.data.allele import HLATypeTable, flanking_snps
+def midscale(n_samples: int = 1000, n_snps: int = 266,
+             n_alleles: int = 14):
+    """Mid-scale training shape: 1,000 samples x 266 HLA-A-flanking SNPs
+    (the shape BASELINE.md measured the reference kernel at).
+    Returns (hla_table, geno_data)."""
+    return synthetic_locus("A", n_snps, n_alleles, seed=SEED).draw(
+        n_samples, SEED + 2)
 
-    if hla is None or geno is None:
-        hla, geno = load_ceu()
-    ids = flanking_snps(geno.snp_id, geno.snp_position, "A", 500_000,
-                        "hg19")
-    f266 = geno.subset(snp_mask=np.isin(geno.snp_id.astype(str),
-                                        ids.astype(str)))
-    rng = np.random.default_rng(seed)
-    tmap = {s: i for i, s in enumerate(hla.sample_id)}
-    keep = np.asarray([i for i, s in enumerate(f266.sample_id)
-                       if s in tmap])
-    f266 = f266.subset(samp_mask=keep)
-    cols = rng.integers(0, f266.n_samp, n_samples)
-    sid = np.array([f"m{i}" for i in range(n_samples)], dtype=object)
-    ti = np.array([tmap[s] for s in f266.sample_id])[cols]
-    g_mid = hibag_tpu.SNPGenoData(
-        genotype=f266.genotype[:, cols], sample_id=sid,
-        snp_id=f266.snp_id, snp_position=f266.snp_position,
-        snp_allele=f266.snp_allele, assembly=f266.assembly)
-    hla_mid = HLATypeTable.from_alleles(
-        sid, hla.allele1[ti], hla.allele2[ti], locus="A", assembly="hg19")
-    return hla_mid, g_mid
+
+def cohort(pop, n_samples: int):
+    """(hla_table, geno_data) of ``n_samples`` fresh samples from ``pop``."""
+    return pop.draw(n_samples, SEED + 3, id_prefix="c")

@@ -5,7 +5,7 @@ The reference consumes R's RNG stream for bootstrap resampling
 2220-2245) and for mtry candidate sampling via partial Fisher–Yates
 (src/LibHLA.cpp:949-962). Replicating R's default Mersenne-Twister and its
 `set.seed` scrambling makes training runs reproducible against R-generated
-traces — TPU-side randomness is never needed (the reference uses none).
+traces — device-side randomness is never needed (the reference uses none).
 
 Implements R's documented behavior: set.seed scrambles the seed through 50+N
 iterations of the 69069 LCG to fill the 624-word MT state; unif_rand applies

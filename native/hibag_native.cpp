@@ -1,8 +1,8 @@
 // hibag_tpu native runtime: high-throughput host-side data preparation.
 //
-// TPU-native counterpart of the reference's native data layer
+// Native counterpart of the reference's native data layer
 // (HIBAG_ConvBED src/HIBAG.cpp:1094-1191, TGenotype packing
-// src/LibHLA.cpp:585-829): the TPU compute path consumes dense int8 code
+// src/LibHLA.cpp:585-829): the device compute path consumes dense int8 code
 // matrices, so the native layer's job is decode/pack/align throughput for
 // biobank-scale inputs, not SIMD scoring (that lives in XLA/Pallas).
 //

@@ -5,7 +5,7 @@ DRB1:0.7}.
 
 Run: PYTHONPATH=. python scripts/ci_full.py [n_classifiers] [--mode fused]
 --mode selects the trainer (host | fused | auto); fused runs the whole
-greedy growth on device, the production TPU path.
+greedy growth on device, the production path on an accelerator.
 """
 
 import sys

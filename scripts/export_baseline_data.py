@@ -6,7 +6,7 @@ Binary format: int32 n_samp, n_snp, n_hla; int32 geno[n_samp*n_snp]
 the kernel's packing); int32 H1[n_samp]; int32 H2[n_samp].
 
 Usage: python scripts/export_baseline_data.py out.bin [locus] [n_samples]
-n_samples > 60 resamples the CEU cohort like scripts/bench_scale.py.
+n_samples > 60 resamples the CEU cohort with replacement.
 """
 
 import struct

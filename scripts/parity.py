@@ -138,8 +138,7 @@ def compare_train(locus: str, seed: int, ncls: int,
 
     eval_mode="ordered" scores candidates with the reference's exact
     serial-summation order (native hibag_ordered_eval) so exact floating
-    ties in the accept decision resolve identically to target "base" —
-    the measurement VERDICT r3 item 5 asked for."""
+    ties in the accept decision resolve identically to target "base"."""
     _setup_jax()
     from hibag_tpu.models.train import grow_classifier
     from hibag_tpu.utils.rng import RRng

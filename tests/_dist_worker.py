@@ -3,12 +3,13 @@
 Usage: python _dist_worker.py <coordinator> <num_procs> <proc_id> <out.npz>
 
 Each process trains its deterministic share of a 4-classifier ensemble on
-the bundled CEU HLA-A data, all-gathers the classifiers, and writes the
+the seeded fixture panel, all-gathers the classifiers, and writes the
 merged model's snp_index arrays — every process must end up with the same
 full ensemble (the reference's master-side combine, R/HIBAG.R:293-451,
 done as a collective instead).
 """
 
+import os
 import sys
 
 import numpy as np
@@ -19,28 +20,20 @@ def main():
         sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     mode = sys.argv[5] if len(sys.argv) > 5 else "host"
     import jax
-    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_platforms", os.environ.get("JAX_PLATFORMS")
+                      or "cpu")
 
-    from hibag_tpu.data.allele import HLATypeTable, flanking_snps
-    from hibag_tpu.data.geno import SNPGenoData
-    from hibag_tpu.io.rdata import read_rdata, r_to_py
+    from _panel import fixture_panel
     from hibag_tpu.models.train import train_distributed
 
-    truth = r_to_py(read_rdata(
-        "/root/reference/data/HLA_Type_Table.rdata")["HLA_Type_Table"])
-    geno = SNPGenoData.from_hibag_r(r_to_py(read_rdata(
-        "/root/reference/data/HapMap_CEU_Geno.rdata")["HapMap_CEU_Geno"]))
-    t = HLATypeTable.from_alleles(
-        truth["sample.id"], truth["A.1"], truth["A.2"], locus="A")
-    ids = flanking_snps(geno.snp_id, geno.snp_position, "A", 500_000, "hg19")
-    fg = geno.subset(
-        snp_mask=np.isin(geno.snp_id.astype(str), ids.astype(str)))
+    t, fg = fixture_panel()
 
     m = train_distributed(t, fg, n_classifiers=4, seed=100, batch=2,
                           verbose=False, coordinator=coordinator,
                           num_processes=num_procs, process_id=proc_id,
                           mode=mode)
-    np.savez(out, n=m.n_classifiers,
+    np.savez(out, n=m.n_classifiers, local=len(jax.local_devices()),
+             **{"global": jax.device_count()},
              **{f"snp{k}": c.snp_index for k, c in enumerate(m.classifiers)},
              **{f"oob{k}": c.oob_accuracy
                 for k, c in enumerate(m.classifiers)})

@@ -20,9 +20,7 @@ def main():
     import jax
     jax.config.update("jax_platforms", "cpu")
 
-    from hibag_tpu.data.allele import HLATypeTable, flanking_snps
-    from hibag_tpu.data.geno import SNPGenoData
-    from hibag_tpu.io.rdata import read_rdata, r_to_py
+    from _panel import fixture_panel
     from hibag_tpu.models.train import train_dynamic
     from hibag_tpu.parallel.mesh import distributed_init
 
@@ -30,16 +28,7 @@ def main():
     if sleep_s:
         time.sleep(sleep_s)
 
-    truth = r_to_py(read_rdata(
-        "/root/reference/data/HLA_Type_Table.rdata")["HLA_Type_Table"])
-    geno = SNPGenoData.from_hibag_r(r_to_py(read_rdata(
-        "/root/reference/data/HapMap_CEU_Geno.rdata")["HapMap_CEU_Geno"]))
-    t = HLATypeTable.from_alleles(
-        truth["sample.id"], truth["A.1"], truth["A.2"], locus="A")
-    ids = flanking_snps(geno.snp_id, geno.snp_position, "A", 500_000,
-                        "hg19")
-    fg = geno.subset(snp_mask=np.isin(geno.snp_id.astype(str),
-                                      ids.astype(str)))
+    t, fg = fixture_panel()
     m = train_dynamic(t, fg, n_classifiers=4, seed=100, job_size=1,
                       work_dir=work_dir, verbose=False, mode="host")
     np.savez(out, n=m.n_classifiers,

@@ -1,6 +1,6 @@
 """Worker for the 2-process distributed-prediction test: each process
-imputes its sample share of the bundled CEU cohort with the published
-HLA-A model and all-gathers; both must hold the full, identical result.
+imputes its sample share of the seeded fixture panel with the fixture
+model and all-gathers; both must hold the full, identical result.
 
 Usage: python _predict_dist_worker.py <coordinator> <nproc> <pid> <out.npz>
 """
@@ -16,18 +16,15 @@ def main():
     import jax
     jax.config.update("jax_platforms", "cpu")
 
-    import hibag_tpu as ht
-    from hibag_tpu.parallel.mesh import predict_distributed
+    from hibag_tpu.parallel.mesh import distributed_init, predict_distributed
 
-    ml = ht.r_to_py(ht.read_rdata(
-        "/root/reference/inst/extdata/ModelList.RData")["modellist"])
-    model = ht.AttrBagModel.from_hibag_obj(ml["A"], locus="A")
-    geno = ht.SNPGenoData.from_hibag_r(ht.r_to_py(ht.read_rdata(
-        "/root/reference/data/HapMap_CEU_Geno.rdata")["HapMap_CEU_Geno"]))
+    # the runtime starts before any JAX computation (training the model)
+    distributed_init(coordinator, nproc, pid)
+    from _panel import fixture_model, fixture_panel
+    hla, geno = fixture_panel()
+    model = fixture_model(hla, geno)
 
-    res = predict_distributed(model, geno, coordinator=coordinator,
-                              num_processes=nproc, process_id=pid,
-                              with_prob=True)
+    res = predict_distributed(model, geno, with_prob=True)
     np.savez(out, sample_id=res.sample_id.astype(str),
              allele1=res.allele1.astype(str), allele2=res.allele2.astype(str),
              prob=res.prob, matching=res.matching, postprob=res.postprob)

@@ -1,5 +1,5 @@
-"""End-to-end CLI workflow on the bundled fixtures (in-process: the CLI is
-plain argparse over the library, so subprocesses are unnecessary)."""
+"""End-to-end CLI workflow on the seeded fixture panel (in-process: the CLI
+is plain argparse over the library, so subprocesses are unnecessary)."""
 
 import gzip
 import json
@@ -7,25 +7,33 @@ import json
 import numpy as np
 import pytest
 
+from _panel import MODEL_CLASSIFIERS
 from hibag_tpu.cli import main
 
 
-REF = "/root/reference"
-
-
 @pytest.fixture(scope="module")
-def workdir(tmp_path_factory):
-    return tmp_path_factory.mktemp("cli")
+def workdir(tmp_path_factory, model_list, hapmap_geno):
+    """The fixture model as a HIBAG ModelList.RData and the panel's
+    genotypes as .npz, the CLI's two input formats."""
+    from hibag_tpu.cli import save_geno
+    from hibag_tpu.models.model import AttrBagModel
+    from hibag_tpu.models.publish import save_rdata
+    d = tmp_path_factory.mktemp("cli")
+    save_rdata({"A": AttrBagModel.from_hibag_obj(model_list["A"],
+                                                 locus="A")},
+               str(d / "ModelList.RData"))
+    save_geno(hapmap_geno, str(d / "panel.npz"))
+    return d
 
 
 def test_cli_convert_model_and_geno(workdir):
-    assert main(["convert", f"{REF}/inst/extdata/ModelList.RData",
+    assert main(["convert", str(workdir / "ModelList.RData"),
                  str(workdir / "modelA.npz"), "--locus", "A"]) == 0
-    assert main(["convert", f"{REF}/inst/extdata/HapMap_CEU.bed",
+    assert main(["convert", str(workdir / "panel.npz"),
                  str(workdir / "geno.npz"), "--geno"]) == 0
     from hibag_tpu.models.model import AttrBagModel
     m = AttrBagModel.load(str(workdir / "modelA.npz"))
-    assert m.n_classifiers == 100 and m.locus == "A"
+    assert m.n_classifiers == MODEL_CLASSIFIERS and m.locus == "A"
     # and back out to R (npz -> .RData, hlaModelFromObj-loadable)
     assert main(["convert", str(workdir / "modelA.npz"),
                  str(workdir / "modelA.RData")]) == 0
@@ -33,7 +41,7 @@ def test_cli_convert_model_and_geno(workdir):
     back = AttrBagModel.from_hibag_obj(
         r_to_py(read_rdata(str(workdir / "modelA.RData"))["mobj"]),
         locus="A")
-    assert back.n_classifiers == 100
+    assert back.n_classifiers == MODEL_CLASSIFIERS
 
 
 def test_cli_impute_tsv_and_vcf(workdir, capsys):
@@ -44,7 +52,7 @@ def test_cli_impute_tsv_and_vcf(workdir, capsys):
     lines = out.read_text().splitlines()
     assert lines[0].split("\t") == ["sample.id", "allele1", "allele2",
                                     "prob", "matching"]
-    assert len(lines) == 91
+    assert len(lines) == 61                 # header + 60 samples
     a1 = lines[1].split("\t")
     assert ":" in a1[1] and 0 < float(a1[3]) <= 1
 
@@ -59,7 +67,7 @@ def test_cli_impute_tsv_and_vcf(workdir, capsys):
 def test_cli_summary(workdir, capsys):
     assert main(["summary", str(workdir / "modelA.npz")]) == 0
     s = json.loads(capsys.readouterr().out)
-    assert s["num.classifier"] == 100 and s["locus"] == "A"
+    assert s["num.classifier"] == MODEL_CLASSIFIERS and s["locus"] == "A"
 
 
 def test_cli_train_and_report(workdir, capsys, hla_types):
@@ -70,13 +78,7 @@ def test_cli_train_and_report(workdir, capsys, hla_types):
         for s, a1, a2 in zip(hla_types["sample.id"], hla_types["A.1"],
                              hla_types["A.2"]):
             f.write(f"{s}\t{a1}\t{a2}\n")
-    geno_npz = workdir / "ceu.npz"
-    from hibag_tpu.cli import save_geno
-    from hibag_tpu.io.rdata import read_rdata, r_to_py
-    from hibag_tpu.data.geno import SNPGenoData
-    g = SNPGenoData.from_hibag_r(r_to_py(read_rdata(
-        f"{REF}/data/HapMap_CEU_Geno.rdata")["HapMap_CEU_Geno"]))
-    save_geno(g, str(geno_npz))
+    geno_npz = workdir / "panel.npz"
 
     model_out = workdir / "trained.npz"
     assert main(["train", "--hla", str(tsv), "--geno", str(geno_npz),

@@ -14,7 +14,8 @@ def model(model_list):
 
 def test_summary(model):
     s = summarize(model)
-    assert s["num.classifier"] == 100
+    from _panel import MODEL_CLASSIFIERS
+    assert s["num.classifier"] == MODEL_CLASSIFIERS
     assert 0 < s["num.snp"] <= model.n_snp
     assert s["snp.hist"].sum() == sum(c.n_snp for c in model.classifiers)
     assert 0 <= s["info"]["accuracy"]["Mean"] <= 100

@@ -1,12 +1,15 @@
-"""Fused Pallas scoring kernel vs the jnp reference implementation."""
+"""Fused Pallas (Triton route) ensemble kernel vs the jnp reference, run in
+interpret mode on the CPU; the compiled kernel is checked on the card by
+chip_smoke.py and the `gpu`-marked test below."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hibag_tpu.ops.scoring import posterior_scores
-from hibag_tpu.ops.scoring_pallas import classifier_posteriors
+from hibag_tpu.constants import LOG_MIN_RARE_FREQ
+from hibag_tpu.ops.scoring import posterior_scores, unordered_from_S
+from hibag_tpu.ops.scoring_triton import BIG, ensemble_posterior_triton
 
 
 def _random_classifier(rng, H=40, L=128, A=14, N=24, n_snp=20):
@@ -21,21 +24,43 @@ def _random_classifier(rng, H=40, L=128, A=14, N=24, n_snp=20):
     return bits, freq, allele, geno
 
 
+def _kernel_inputs(bits, freq, allele, g, w, A):
+    """Kernel operands for classifiers bits [C,H,L], freq/allele [C,H],
+    genotypes g [n,C,L] and weights w [C,n], laid out by predict's own
+    _prepare_ensemble."""
+    from types import SimpleNamespace
+    from hibag_tpu.models.predict import _prepare_ensemble
+    C = bits.shape[0]
+    Cp = max(16, 1 << (C - 1).bit_length())
+    wt = np.zeros((g.shape[0], Cp), np.float32)
+    wt[:, :C] = w.T
+    tensors = _prepare_ensemble(
+        SimpleNamespace(hap_bits=bits, hap_freq=freq, hap_allele=allele), A)
+    return (*tensors, jnp.asarray(g), jnp.asarray(wt))
+
+
+def _one(bits, freq, allele, geno, A):
+    """Kernel with one classifier of weight 1: unordered posterior sums."""
+    ens, lm = ensemble_posterior_triton(
+        *_kernel_inputs(bits[None], freq[None], allele[None],
+                        geno[:, None], np.ones((1, len(geno)), np.float32),
+                        A), interpret=True)
+    return np.asarray(ens)[:, :A, :A], np.asarray(lm)[:, 0]
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_pallas_matches_reference(seed):
     rng = np.random.default_rng(seed)
     bits, freq, allele, geno = _random_classifier(rng)
     ref = posterior_scores(jnp.asarray(bits), jnp.asarray(freq),
                            jnp.asarray(allele), jnp.asarray(geno), 14)
-    out = classifier_posteriors(jnp.asarray(bits), jnp.asarray(freq),
-                                jnp.asarray(allele), jnp.asarray(geno), 14,
-                                interpret=jax.default_backend() == "cpu")
-    np.testing.assert_allclose(np.asarray(out["dmin"]),
-                               np.asarray(ref["dmin"]), atol=1e-4)
-    np.testing.assert_allclose(np.asarray(out["S"]), np.asarray(ref["S"]),
-                               rtol=2e-4, atol=1e-30)
-    np.testing.assert_allclose(np.asarray(out["total"]),
-                               np.asarray(ref["total"]), rtol=2e-4)
+    ens, lm = _one(bits, freq, allele, geno, 14)
+    Q = np.asarray(unordered_from_S(ref["S"]))
+    tot = np.asarray(ref["total"])
+    np.testing.assert_allclose(ens, Q / tot[:, None, None], rtol=1e-4,
+                               atol=1e-9)
+    lref = np.log(tot) + LOG_MIN_RARE_FREQ * np.asarray(ref["dmin"])
+    np.testing.assert_allclose(lm, lref, rtol=1e-5, atol=1e-4)
 
 
 def test_pallas_missing_heavy():
@@ -44,20 +69,14 @@ def test_pallas_missing_heavy():
     geno[:4] = 3  # all-missing samples
     ref = posterior_scores(jnp.asarray(bits), jnp.asarray(freq),
                            jnp.asarray(allele), jnp.asarray(geno), 14)
-    out = classifier_posteriors(jnp.asarray(bits), jnp.asarray(freq),
-                                jnp.asarray(allele), jnp.asarray(geno), 14,
-                                interpret=jax.default_backend() == "cpu")
-    np.testing.assert_allclose(np.asarray(out["S"]), np.asarray(ref["S"]),
-                               rtol=2e-4, atol=1e-30)
+    ens, _ = _one(bits, freq, allele, geno, 14)
+    Q = np.asarray(unordered_from_S(ref["S"]))
+    np.testing.assert_allclose(ens, Q / np.asarray(ref["total"])[:, None,
+                                                                  None],
+                               rtol=1e-4, atol=1e-9)
 
 
-def test_ensemble_accumulate_matches_scan():
-    """The single-launch ensemble kernel equals the per-classifier scan."""
-    from types import SimpleNamespace
-    from hibag_tpu.models.predict import (_predict_block, _predict_block_ens,
-                                          _prepare_ensemble)
-    rng = np.random.default_rng(11)
-    C, H, L, A, n, P = 4, 24, 128, 9, 16, 300
+def _random_ensemble(rng, C=4, H=24, L=128, A=9, n=16, P=300):
     hb = np.zeros((C, H, L), np.float32)
     hf = np.zeros((C, H), np.float32)
     ha = np.zeros((C, H), np.int32)
@@ -74,132 +93,179 @@ def test_ensemble_accumulate_matches_scan():
     for c in range(C):
         sw[si[c][si[c] >= 0]] += 1
     geno = rng.integers(0, 4, (n, P)).astype(np.uint8)
+    geno[0] = 3                                  # an all-missing sample
+    return hb, hf, ha, si, sw, geno
 
+
+def test_ensemble_accumulate_matches_scan():
+    """The fused whole-ensemble path equals the per-classifier scan."""
+    from types import SimpleNamespace
+    from hibag_tpu.models.predict import (_predict_block, _predict_block_ens,
+                                          _prepare_ensemble)
+    A = 9
+    hb, hf, ha, si, sw, geno = _random_ensemble(np.random.default_rng(11))
     args = (jnp.asarray(hb), jnp.asarray(hf), jnp.asarray(ha),
             jnp.asarray(si), jnp.asarray(sw), jnp.asarray(geno))
-    ens1, wsum1, lm1, w1 = _predict_block(*args, A, "prob", "jnp", 1)
-    ehb, eW, evalid = _prepare_ensemble(
+    ens1, wsum1, lm1, w1 = _predict_block(*args, A, "prob", 1)
+    tensors = _prepare_ensemble(
         SimpleNamespace(hap_bits=hb, hap_freq=hf, hap_allele=ha), A)
     ens2, wsum2, lm2, w2 = _predict_block_ens(
-        ehb, eW, evalid, jnp.asarray(si), jnp.asarray(sw),
-        jnp.asarray(geno), A)
+        tensors, jnp.asarray(si), jnp.asarray(sw), jnp.asarray(geno), A,
+        interpret=True)
     np.testing.assert_allclose(np.asarray(w2), np.asarray(w1), atol=1e-6)
     np.testing.assert_allclose(np.asarray(wsum2), np.asarray(wsum1),
                                atol=1e-5)
     np.testing.assert_allclose(np.asarray(ens2), np.asarray(ens1),
-                               rtol=3e-4, atol=1e-7)
+                               rtol=1e-4, atol=1e-8)
     np.testing.assert_allclose(np.asarray(lm2), np.asarray(lm1),
-                               rtol=1e-3, atol=1e-3)
+                               rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("nb,A", [(8, 14), (16, 9), (32, 16)])
-def test_ensemble_accumulate_kernel_direct(nb, A):
-    """ensemble_accumulate_pallas vs a straightforward jnp evaluation, over
-    sample-block widths and allele counts at/below the Ap row tile."""
-    from hibag_tpu.constants import LOG_MIN_RARE_FREQ
-    from hibag_tpu.ops.scoring_pallas import ensemble_accumulate_pallas
-
-    rng = np.random.default_rng(3 * nb + A)
-    C, H, L, N = 3, 128, 128, 2 * nb
-    Ap = ((A + 7) // 8) * 8
-    Ac = 128
+@pytest.mark.parametrize("bh,H,A", [(64, 128, 14), (32, 80, 9),
+                                    (16, 40, 16)])
+def test_ensemble_accumulate_kernel_direct(bh, H, A):
+    """The kernel vs an explicit numpy evaluation of distances, penalties
+    and contractions, over tile widths, haplotype counts that span several
+    tiles (with a partial last one) and allele counts below the padded
+    allele axis."""
+    rng = np.random.default_rng(bh + H + A)
+    C, L, N = 3, 128, 6
     hb = (rng.random((C, H, L)) < 0.5).astype(np.float32)
+    hb[:, :, 30:] = 0
     allele = np.sort(rng.integers(0, A, (C, H)), axis=1)
     freq = rng.dirichlet(np.ones(H), C).astype(np.float32)
     valid = np.ones((C, H), bool)
-    valid[:, H - 16:] = False
+    valid[:, H - 8:] = False
     freq[~valid] = 0.0
-    W = np.zeros((C, H, Ac), np.float32)
-    for c in range(C):
-        W[c, np.arange(H), allele[c]] = freq[c]
-    g = rng.integers(0, 4, (C, N, L)).astype(np.int8)
-    wgt = rng.random((C, N, 1)).astype(np.float32)
+    g = rng.integers(0, 4, (N, C, L)).astype(np.int8)
+    g[:, :, 30:] = 3
+    w = rng.random((C, N)).astype(np.float32)
+    ens, lm = ensemble_posterior_triton(
+        *_kernel_inputs(hb, freq, allele, g, w, A), bh=bh, interpret=True)
+    ens, lm = np.asarray(ens), np.asarray(lm)
+    Ap = ens.shape[1]
 
-    ens, dmin, total = ensemble_accumulate_pallas(
-        jnp.asarray(hb), jnp.asarray(W), jnp.asarray(valid[..., None]
-                                                     .astype(np.float32)),
-        jnp.asarray(g), jnp.asarray(wgt), Ap, nb=nb,
-        interpret=jax.default_backend() == "cpu")
-
-    # reference: explicit per-classifier distance + penalty + contraction
-    ens_ref = np.zeros((N, Ap, Ac))
+    ens_ref = np.zeros((N, Ap, Ap))
     for c in range(C):
+        W = np.zeros((H, Ap))
+        W[np.arange(H), allele[c]] = freq[c]
         for s in range(N):
-            gs = g[c, s].astype(np.int64)
-            D = np.zeros((H, H))
-            for i in range(H):
-                for j in range(H):
-                    h1, h2 = hb[c, i], hb[c, j]
-                    obs = gs <= 2
-                    D[i, j] = np.sum(np.where(obs,
-                                              np.abs(h1 + h2 - gs), 0.0))
+            gs = g[s, c].astype(np.int64)
+            obs = gs <= 2
+            h = hb[c]
+            D = np.where(obs[None, None],
+                         np.abs(h[:, None, :] + h[None, :, :] - gs), 0.0
+                         ).sum(-1)
             D = np.where(valid[c][:, None] & valid[c][None, :], D, np.inf)
             dm = D.min()
-            pen = np.where(np.isfinite(D), np.exp(LOG_MIN_RARE_FREQ
-                                                  * (D - dm)), 0.0)
-            S = W[c].T @ pen @ W[c]
-            tot = S[:A, :A].sum()
-            assert np.isclose(np.asarray(total)[c, s], tot, rtol=2e-3), (
-                c, s, tot, np.asarray(total)[c, s])
-            assert np.isclose(np.asarray(dmin)[c, s], dm, atol=1e-3)
-            off = 2.0 - np.eye(Ac)
-            ens_ref[s] += (S[:Ap] * off[:Ap]) * wgt[c, s, 0] / max(tot,
-                                                                   1e-30)
-    np.testing.assert_allclose(np.asarray(ens), ens_ref, rtol=3e-3,
-                               atol=1e-8)
+            pen = np.where(np.isfinite(D),
+                           np.exp(LOG_MIN_RARE_FREQ * (D - dm)), 0.0)
+            S = W.T @ pen @ W
+            tot = S.sum()
+            np.testing.assert_allclose(
+                lm[s, c], np.log(w[c, s]) + np.log(tot)
+                + LOG_MIN_RARE_FREQ * dm, rtol=1e-5, atol=1e-4)
+            ens_ref[s] += S * (2.0 - np.eye(Ap)) * w[c, s] / tot
+    np.testing.assert_allclose(ens, ens_ref, rtol=1e-4, atol=1e-9)
+    assert np.all(lm[:, C:] == -np.inf)
 
 
-def test_pick_nb_lane_aligned_and_budgeted():
-    """nb must be a multiple of 8 within the nb*H <= 4096 scratch budget
-    (a stray '* 8 // 8' used to make it a no-op: nb=10 at H=384)."""
-    from hibag_tpu.ops.scoring_pallas import (ENS_KERNEL_MAX_H,
-                                              ens_kernel_supported, pick_nb)
+def test_prepare_ensemble_layout():
+    """_prepare_ensemble pads H to the kernel tile, A to a power of two,
+    marks empty and padded classifier slots invalid and splits W exactly
+    enough that hi + lo reproduces it to ~16 bits."""
+    from types import SimpleNamespace
+    from hibag_tpu.models.predict import _prepare_ensemble
+    from hibag_tpu.ops.scoring_triton import TILE_H
 
-    for H in (64, 128, 192, 256, 384, 512):
-        nb = pick_nb(H)
-        assert nb % 8 == 0 and 8 <= nb <= 64, (H, nb)
-        assert nb * H <= 4096 or nb == 8, (H, nb)
-    assert pick_nb(384) == 8
-    assert ens_kernel_supported(ENS_KERNEL_MAX_H)
-    assert not ens_kernel_supported(ENS_KERNEL_MAX_H + 128)
+    hb, hf, ha, *_ = _random_ensemble(np.random.default_rng(5), C=3, H=70)
+    pk = SimpleNamespace(hap_bits=hb, hap_freq=hf, hap_allele=ha)
+    bits, wh, wl, inval = _prepare_ensemble(pk, 9, cpad=2)
+    Hp = -(-70 // TILE_H) * TILE_H
+    assert bits.shape == (5, Hp, 128) and bits.dtype == jnp.bfloat16
+    assert wh.shape == wl.shape == (5, Hp, 16)
+    inval = np.asarray(inval)
+    assert inval.shape == (5, Hp)
+    np.testing.assert_array_equal(inval[:3, :70] == 0, hf > 0)
+    assert np.all(inval[3:] == BIG) and np.all(inval[:, 70:] == BIG)
+    W = np.asarray(wh, np.float32) + np.asarray(wl, np.float32)
+    ref = np.zeros((3, 70, 16), np.float32)
+    for c in range(3):
+        ref[c, np.arange(70), ha[c]] = hf[c]
+    np.testing.assert_allclose(W[:3, :70], ref, rtol=2e-5, atol=0)
+    assert np.all(W[3:] == 0) and np.all(W[:, 70:] == 0)
 
 
-def test_predict_large_h_falls_back_to_scan_engine():
-    """A model whose padded haplotype count exceeds the kernel's VMEM
-    ceiling must predict via the scan engine instead of failing."""
-    import numpy as np
-
-    from hibag_tpu.models.model import AttrBagModel, Classifier
-    from hibag_tpu.models.predict import predict
-
+def test_kernel_large_h_matches_scan():
+    """A model with 600 haplotypes per classifier (ten 64-row tiles, once
+    past the old kernel's ceiling) predicts through the tiled kernel and
+    agrees with the scan engine."""
+    from types import SimpleNamespace
+    from hibag_tpu.models.predict import (_predict_block, _predict_block_ens,
+                                          _prepare_ensemble)
     rng = np.random.default_rng(0)
-    H, P, A, n = 600, 24, 5, 8        # H=600 -> Hp=640 > 512
-    classifiers = []
-    for k in range(2):
-        freq = rng.dirichlet(np.ones(H))
-        classifiers.append(Classifier(
-            snp_index=np.arange(P, dtype=np.int32),
-            hap_bits=rng.integers(0, 2, (H, P)).astype(np.uint8),
-            hap_freq=freq,
-            hap_allele=np.sort(rng.integers(0, A, H)).astype(np.int32),
-            bootstrap_count=np.ones(16, np.int32),
-            oob_accuracy=0.5))
-    model = AttrBagModel(
-        classifiers=classifiers, locus="A",
-        hla_alleles=np.array([f"{i:02d}:01" for i in range(A)],
-                             dtype=object),
-        snp_id=np.array([f"rs{i}" for i in range(P)], dtype=object),
-        snp_position=np.arange(P, dtype=np.int64),
-        snp_allele=np.array(["A/G"] * P, dtype=object),
-        assembly="hg19")
-    codes = rng.integers(0, 3, (n, P)).astype(np.uint8)
-    # the downgrade warning doubles as the regression guard: on CPU the
-    # Pallas kernel runs in interpret mode (no VMEM limit), so without it
-    # this test would pass even with the fallback deleted
-    with pytest.warns(UserWarning, match="VMEM ceiling"):
-        res = predict(model, codes, engine="pallas")   # must not raise
-    assert len(res.allele1) == n
-    assert np.all(res.prob > 0)
-    # jnp output for the same model must agree (the fallback is exact)
-    res2 = predict(model, codes, engine="jnp")
-    np.testing.assert_allclose(res.prob, res2.prob, rtol=1e-6)
+    C, H, P, A, n = 2, 600, 24, 5, 3
+    hb = np.zeros((C, H, 128), np.float32)
+    hb[:, :, :P] = rng.integers(0, 2, (C, H, P))
+    hf = rng.dirichlet(np.ones(H), C).astype(np.float32)
+    ha = np.sort(rng.integers(0, A, (C, H)), axis=1).astype(np.int32)
+    si = np.full((C, 128), -1, np.int32)
+    si[:, :P] = np.arange(P)
+    sw = np.full(P, C, np.int32)
+    geno = rng.integers(0, 3, (n, P)).astype(np.uint8)
+    args = (jnp.asarray(si), jnp.asarray(sw), jnp.asarray(geno))
+    ens1, *_ = _predict_block(jnp.asarray(hb), jnp.asarray(hf),
+                              jnp.asarray(ha), *args, A, "prob", 1)
+    tensors = _prepare_ensemble(
+        SimpleNamespace(hap_bits=hb, hap_freq=hf, hap_allele=ha), A)
+    ens2, *_ = _predict_block_ens(tensors, *args, A, interpret=True)
+    np.testing.assert_allclose(np.asarray(ens2), np.asarray(ens1),
+                               rtol=1e-4, atol=1e-8)
+
+
+@pytest.mark.parametrize("backend,engine,vote,f64,want", [
+    ("gpu", "auto", "prob", False, "triton"),
+    ("gpu", "triton", "prob", False, "triton"),
+    ("gpu", "jnp", "prob", False, "jnp"),
+    ("gpu", "auto", "majority", False, "jnp"),
+    ("gpu", "auto", "prob", True, "jnp"),
+    ("cpu", "auto", "prob", False, "jnp"),
+    ("cpu", "jnp", "majority", False, "jnp"),
+])
+def test_resolve_engine(monkeypatch, backend, engine, vote, f64, want):
+    """predict's engine choice per backend: never interpret mode, never a
+    kernel for another platform; the fused kernel only on a GPU."""
+    from hibag_tpu.models import predict as P
+    monkeypatch.setattr(P.jax, "default_backend", lambda: backend)
+    assert P.resolve_engine(engine, vote, f64) == want
+
+
+def test_resolve_engine_rejects_kernel_off_gpu(monkeypatch):
+    from hibag_tpu.models import predict as P
+    monkeypatch.setattr(P.jax, "default_backend", lambda: "cpu")
+    with pytest.raises(ValueError, match="needs a GPU"):
+        P.resolve_engine("triton")
+    with pytest.raises(ValueError, match="unknown engine"):
+        P.resolve_engine("pallas")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", [24, 180, 600])
+def test_kernel_compiled_matches_scan(gpu, H):
+    """The kernel as compiled for the card agrees with the scan engine, at
+    padded haplotype counts of one tile (64) and of three and ten tiles
+    (192, 640: not powers of two)."""
+    from types import SimpleNamespace
+    from hibag_tpu.models.predict import (_predict_block, _predict_block_ens,
+                                          _prepare_ensemble)
+    A = 9
+    hb, hf, ha, si, sw, geno = _random_ensemble(np.random.default_rng(2),
+                                                H=H, n=64)
+    args = (jnp.asarray(si), jnp.asarray(sw), jnp.asarray(geno))
+    ens1, *_ = _predict_block(jnp.asarray(hb), jnp.asarray(hf),
+                              jnp.asarray(ha), *args, A, "prob", 1)
+    tensors = _prepare_ensemble(
+        SimpleNamespace(hap_bits=hb, hap_freq=hf, hap_allele=ha), A)
+    ens2, *_ = _predict_block_ens(tensors, *args, A)
+    np.testing.assert_allclose(np.asarray(ens2), np.asarray(ens1),
+                               rtol=1e-4, atol=1e-8)
